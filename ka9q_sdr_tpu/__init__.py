@@ -1,4 +1,4 @@
-"""ka9q_sdr_tpu — a TPU-native rebuild of the ka9q-radio SDR suite.
+"""ka9q_sdr_tpu — a JAX rebuild of the ka9q-radio SDR suite.
 
 The reference (OpenResearchInstitute/ka9q-sdr, Phil Karn's ka9q-radio) is a
 set of C/pthreads UNIX processes connected by RTP multicast: hardware front
@@ -6,18 +6,18 @@ ends multicast raw I/Q; the `radio` program downconverts, filters
 (overlap-save fast convolution) and demodulates (AM/FM/linear-SSB) into
 48 kHz PCM; downstream modules transcode, play, decode and record.
 
-This package re-designs that stack TPU-first:
+This package re-designs that stack for an accelerator, in JAX:
 
 - ``ops``      — pure-functional JAX DSP primitives (overlap-save filter
                  engine, NCO phase ramps, Kaiser filter design, half-band
                  decimators, AGC/IIR recurrences).  Equivalent of the
                  reference's filter.c / osc.c / dsp.c / decimate.c.
 - ``models``   — demodulators (FM / AM / linear) and receivers built from
-                 ops, including the batched multichannel bank (the TPU
+                 ops, including the batched multichannel bank (the
                  flagship: one wideband FFT shared by hundreds of channels).
                  Equivalent of fm.c / am.c / linear.c / radio.c.
 - ``parallel`` — jax.sharding mesh utilities for sharding the channel axis
-                 across chips.
+                 across devices.
 - ``net``      — wire-compatible host transport: RTP/multicast, TLV
                  status/command protocol, RTCP.  Equivalent of multicast.c /
                  status.c / rtcp.c, with a C++ fast path.

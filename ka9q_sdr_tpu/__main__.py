@@ -4,7 +4,7 @@ import sys
 
 APPS = {
     "radio": "core receiver: I/Q in, PCM + status out (main.c/radio.c)",
-    "bankd": "multichannel TPU bank: N channels, one FFT",
+    "bankd": "multichannel bank: N channels, one FFT",
     "frontend": "front-end daemon/simulator with frac-N LO model",
     "iqplay": "replay recordings as RTP I/Q (iqplay.c)",
     "iqrecord": "record RTP sessions with xattr metadata (iqrecord.c)",
@@ -23,7 +23,7 @@ APPS = {
 
 
 def main() -> int:
-    print("ka9q_sdr_tpu — TPU-native ka9q-radio.  Daemons:")
+    print("ka9q_sdr_tpu — ka9q-radio rebuilt on JAX.  Daemons:")
     for name, desc in APPS.items():
         print(f"  python -m ka9q_sdr_tpu.apps.{name:<9} {desc}")
     print("\nDocs: README.md, PARITY.md, ARCHITECTURE.md")

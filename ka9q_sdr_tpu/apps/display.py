@@ -45,7 +45,7 @@ __all__ = ["main", "TuningState"]
 
 #: Help overlay ('h'/'?', the reference ships help.txt).
 HELP_TEXT = """
-KA9Q TPU radio display - keys (display.c:745-986)
+KA9Q radio display - keys (display.c:745-986)
 
   Up/Down       adjust the selected item by the current step
   Left/Right    move the digit cursor (step x10 / /10)
@@ -197,7 +197,7 @@ def _render_body(stdscr, mirror: StatusMirror, tuning: TuningState, bp,
     g = mirror.get
     freq = g(StatusType.RADIO_FREQUENCY, float("nan"))
     mode = g(StatusType.RADIO_MODE, "?")
-    stdscr.addstr(0, 0, "KA9Q TPU radio", curses.A_BOLD)
+    stdscr.addstr(0, 0, "KA9Q radio", curses.A_BOLD)
 
     def item_attr(name):
         return (curses.A_BOLD if tuning.item_name == name

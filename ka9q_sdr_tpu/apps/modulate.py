@@ -30,6 +30,9 @@ def main(argv=None) -> int:
                    help="accepted for reference compatibility")
     args = p.parse_args(argv)
 
+    from ..utils.runtime import configure_jax
+
+    configure_jax(cpu=True)
     m = Modulator(
         args.mode,
         frequency=args.frequency,

@@ -12,7 +12,7 @@ Structure mirrors the reference decode_task:
 - NRZI + bit-unstuffing + flag/abort detection + CRC-CCITT
   (packet.c:336-407).
 
-TPU-native split: filtering and tone mixdown are vectorised block math
+Split: filtering and tone mixdown are vectorised block math
 (numpy here — this decoder runs at 48 kHz on the host, and must not share
 the device's jit boundary); the bit-sync runs as an *event* loop at
 ~2400 events/s using prefix sums, not per-sample Python, and reproduces

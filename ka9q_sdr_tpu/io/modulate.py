@@ -8,8 +8,8 @@ the demodulators (modulate -> iqplay -> radio, SURVEY.md §4).
 
 AM / USB / LSB / AME presets match modulate.c:75-95; gain bookkeeping
 (4/N for the FFT round trip and 4x upsampling, modulate.c:118) matches
-exactly.  Runs in JAX so the generator itself is TPU-capable, but it's
-design-time/test code — CPU is fine.
+exactly.  Runs in JAX on the default device; the `modulate` app pins
+itself to the host CPU (test-signal generation does not need the card).
 """
 
 from __future__ import annotations
@@ -99,11 +99,8 @@ class Modulator:
             raise ValueError(f"need {self.L // UPSAMPLE} samples")
         up = np.zeros(self.L, np.float32)
         up[::UPSAMPLE] = audio  # zero-stuff (modulate.c:140-145)
-        # test-signal generation runs on the host CPU backend: its jit
-        # boundary carries complex64, which the TPU runtime can't transfer
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
-            self.overlap, self.osc, iq = self._step(self.overlap, self.osc, up)
-            return np.asarray(iq)
+        self.overlap, self.osc, iq = self._step(self.overlap, self.osc, up)
+        return np.asarray(iq)
 
     def to_int16(self, iq: np.ndarray) -> bytes:
         """Interleaved s16 I/Q as iqplay expects (modulate.c:159-163)."""

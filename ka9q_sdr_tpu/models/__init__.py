@@ -1,13 +1,13 @@
 """Demodulators and receivers built from the DSP primitives.
 
-TPU-native equivalents of the reference's demod threads and receiver:
+JAX equivalents of the reference's demod threads and receiver:
 
 - ``noise``        — out-of-passband noise density estimate (radio.c:383-425)
 - ``demod_am``     — AM envelope detector + hang AGC (am.c)
 - ``demod_fm``     — FM discriminator, squelch, de-emphasis, PL tone (fm.c)
 - ``demod_linear`` — SSB/CW/IQ/ISB/coherent modes with PLL (linear.c)
 - ``receiver``     — single-channel receiver pipeline (radio.c proc_samples)
-- ``bank``         — wideband multichannel bank (the TPU flagship)
+- ``bank``         — wideband multichannel bank (the flagship)
 
 Every demodulator is a pure block function ``(cfg, state, baseband) ->
 (state, audio, diag)`` where cfg is static (hashable, closed over by jit),

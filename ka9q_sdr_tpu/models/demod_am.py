@@ -1,4 +1,4 @@
-"""AM envelope demodulator — TPU-native equivalent of am.c.
+"""AM envelope demodulator — JAX equivalent of am.c.
 
 The C loop (am.c:51-75) is, per decimated sample: envelope = |s|, one-pole
 DC (carrier) tracker, hang-AGC gain update driven by the DC estimate, and

@@ -1,4 +1,4 @@
-"""FM demodulator — TPU-native equivalent of fm.c.
+"""FM demodulator — JAX equivalent of fm.c.
 
 Pipeline per 20 ms block (fm.c:72-174):
 

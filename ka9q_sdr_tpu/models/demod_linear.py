@@ -1,4 +1,4 @@
-"""Linear demodulator — TPU-native equivalent of linear.c.
+"""Linear demodulator — JAX equivalent of linear.c.
 
 Handles USB/LSB/CW/IQ/ISB/coherent-AM/DSB/BPSK: everything except FM and
 envelope AM.  Structure per block (linear.c:114-310):
@@ -10,8 +10,9 @@ envelope AM.  Structure per block (linear.c:114-310):
    optional squaring regenerates the carrier of DSB/BPSK.  Lock detection
    is an SNR hysteresis counter.
 
-   TPU memory redesign of the acquisition buffer: the C keeps a 64k-point
-   full-rate ring (linear.c:43,131-153) — 512 MB of HBM at 1024 channels.
+   Memory redesign of the acquisition buffer: the C keeps a 64k-point
+   full-rate ring (linear.c:43,131-153) — 512 MB of device memory at 1024
+   channels.
    The search band is only ±300 Hz (±600 squared), so we decimate the
    (squared) baseband through a half-band cascade (the fm.c:201-228 PL
    trick) by `acq_decim` before ringing it: same 1.37 s window and the

@@ -1,4 +1,4 @@
-"""Single-channel receiver — TPU-native equivalent of the `radio` program's
+"""Single-channel receiver — JAX equivalent of the `radio` program's
 sample path (radio.c proc_samples + one demod thread).
 
 The reference splits the hot path across four pthreads handing off through
@@ -280,7 +280,7 @@ def receiver_step(
 def receiver_scan(cfg: ReceiverConfig, state: ReceiverState, blocks):
     """Offline batch path: lax.scan the receiver over many blocks in ONE
     device program — no per-block dispatch or transfer round trips.  The
-    TPU-native equivalent of replaying a recording through `radio` faster
+    The equivalent of replaying a recording through `radio` faster
     than real time (iqplay -> radio, SURVEY.md §4).
 
     blocks: (nblocks, L) complex.  Returns (final_state, audio) with
@@ -337,8 +337,8 @@ class SDRStatus:
 
 
 def receiver_step_packed(cfg: ReceiverConfig, template):
-    """receiver_step with a real-dtype-only jit boundary (the target TPU
-    runtime cannot transfer complex64 host<->device; see ops.packing).
+    """receiver_step with a real-dtype-only jit boundary (see
+    ops.packing).
     The filter response and n0 mask are runtime arguments so set_filter
     hot-swaps them without recompiling."""
     from ..ops.packing import tree_c2r, tree_r2c, r2c
@@ -366,11 +366,8 @@ class Receiver:
         from ..ops.packing import tree_c2r_np
 
         self.cfg = cfg
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
-            self._template = receiver_init(cfg)
-            self.state = tree_c2r_np(
-                jax.tree_util.tree_map(np.asarray, self._template)
-            )
+        self._template = jax.tree_util.tree_map(np.asarray, receiver_init(cfg))
+        self.state = tree_c2r_np(self._template)
         self.sdr = SDRStatus(samprate=cfg.samprate)
         self.tune_freq = 0.0
         self.second_lo = 0.0   # LO2 Hz, mirrored for status emission
@@ -569,11 +566,8 @@ class Receiver:
             enable_pl=self.cfg.enable_pl,
         )
         self.cfg = cfg
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
-            self._template = receiver_init(cfg)
-            fresh = tree_c2r_np(
-                jax.tree_util.tree_map(np.asarray, self._template)
-            )
+        self._template = jax.tree_util.tree_map(np.asarray, receiver_init(cfg))
+        fresh = tree_c2r_np(self._template)
         self.state = fresh._replace(
             lo2=old_packed.lo2,
             doppler=old_packed.doppler,
@@ -608,11 +602,8 @@ class Receiver:
             enable_pl=self.cfg.enable_pl,
         )
         self.cfg = cfg
-        with jax.default_device(jax.local_devices(backend="cpu")[0]):
-            self._template = receiver_init(cfg)
-            fresh = tree_c2r_np(
-                jax.tree_util.tree_map(np.asarray, self._template)
-            )
+        self._template = jax.tree_util.tree_map(np.asarray, receiver_init(cfg))
+        fresh = tree_c2r_np(self._template)
         # carry oscillator phases and the master overlap across the switch
         self.state = fresh._replace(
             overlap=old_packed.overlap,

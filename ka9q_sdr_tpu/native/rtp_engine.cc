@@ -1,7 +1,7 @@
-// High-rate RTP I/Q engine: the native runtime under the TPU compute path.
+// High-rate RTP I/Q engine: the native runtime under the device compute path.
 //
 // The reference's hot network loop is C (rtp_recv/proc_samples,
-// main.c:288-362, radio.c:41-149).  This is its TPU-era equivalent: a
+// main.c:288-362, radio.c:41-149).  This is its equivalent here: a
 // dedicated receive thread drains the socket with recvmmsg batching,
 // parses RTP, resequences (dupe drop, gap zero-fill — the semantics of
 // rtp_process, multicast.c:305-340), converts int16 I/Q to packed float32
@@ -249,7 +249,7 @@ struct RxEngine {
       // fills cur() = slot wseq OUTSIDE this mutex, so letting the ring
       // reach wseq-rseq == nblocks would alias the fill slot with the
       // slot the reader is memcpy-ing under the lock (torn blocks once
-      // a consumer stalls >1.2 s, e.g. a first TPU compile).
+      // a consumer stalls >1.2 s, e.g. a first compile).
       if (w - rseq > nblocks - 1) {  // overrun: drop oldest
         rseq = w - (nblocks - 1);
         overruns++;

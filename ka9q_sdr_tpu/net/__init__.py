@@ -3,7 +3,7 @@ status/command protocol, RTCP, and the legacy in-band status header.
 
 This layer reproduces the reference's network interfaces bit-for-bit
 (multicast.c, status.c, rtcp.c, sdr.h) so the reference's own consumers —
-monitor, pcmcat, opus, VLC — interoperate with the TPU receiver's streams
+monitor, pcmcat, opus, VLC — interoperate with this receiver's streams
 and vice versa.  Pure host code; the device never sees a packet.
 """
 

@@ -1,4 +1,4 @@
-"""DSP primitives: TPU-native equivalents of the reference's libradio math.
+"""DSP primitives: JAX equivalents of the reference's libradio math.
 
 Reference files covered: filter.c/filter.h (fast-convolution engine and
 Kaiser design), osc.c/osc.h (complex NCO), dsp.c/dsp.h (helpers),

@@ -1,14 +1,14 @@
 """Half-band decimator cascade for power-of-2 sample-rate reduction.
 
-TPU-native equivalent of the reference's hand-written SSE decimators
+JAX equivalent of the reference's hand-written SSE decimators
 (decimate.c) as used by the hackrf front end (hackrf.c:229-238, 295-318):
 a cascade of decimate-by-2 half-band FIR stages — a cheap 3-tap (1,2,1)
 stage for the early (wideband) stages and the Goodman/Carey "F8" folded
 15-tap filter for the final stages (stage_threshold picks the crossover,
 hackrf.c:76).
 
-Here each stage is a strided FIR evaluated as a dense batched matmul-free
-convolution (XLA maps strided convs onto the VPU/MXU); state is the carried
+Here each stage is a strided FIR evaluated as weighted strided slices
+(no matrix product); state is the carried
 (ntaps-1)-sample overlap per stage, so the cascade is a pure function
 suitable for lax.scan streaming.
 
@@ -48,11 +48,10 @@ def _fir_decim2(state: jax.Array, x: jax.Array, taps: np.ndarray):
     xx = [carried overlap | x].  Returns (new_state, y).
 
     Computed as weighted strided SLICES (one per nonzero tap — half-band
-    filters have zero even taps, so hb15 is 9 terms, hb3 is 3): pure VPU
-    multiply-adds in the input dtype.  An earlier windowed-gather+einsum
-    form had two TPU problems: a (n_out, ntaps) fancy-index gather, and
-    jnp.einsum's TPU default precision (1-pass bf16, err ~5e-3 — the r4
-    trap; see fft_mxu's docstring) silently degrading the cascade."""
+    filters have zero even taps, so hb15 is 9 terms, hb3 is 3): plain
+    elementwise multiply-adds in the input dtype.  No matrix product, so
+    no reduced-precision matmul mode (bf16 or TF32) can touch the
+    cascade."""
     ntaps = len(taps)
     if x.shape[-1] % 2:
         # an odd block would silently shift the decimation grid one

@@ -4,34 +4,22 @@ The FM demodulator's threshold extension (fm.c:128-144) is a per-sample
 data-dependent recurrence in C: weak samples are blanked and replaced by
 the last strong sample's output.  The recurrence is a *gated lag* — the
 state at n is simply the value at the most recent index k <= n where the
-gate was true.  That is an associative "last valid wins" combine, so it
-runs as a log-depth associative_scan of elementwise selects — pure VPU
-work.  (An earlier cummax-index + take_along_axis formulation was 10x
-slower on TPU: per-element gathers serialise; measured 10 ms -> <1 ms at
-(1024, 960).)
+gate was true.  So the fill is a running maximum of the masked sample
+index (`last_true_index`, one cummax) followed by a gather of each value
+array at that index; rows with no true sample yet take their init.
 
-On TPU at bank scale the scan's log-depth is the cost: XLA materialises
-every level, ~(planes+1) x 2 log2(T) full HBM passes — measured 23 ms
-for one complex fill at (7168, 7104) (r4).  `_fill_pallas` replaces it
-with a single-HBM-pass kernel (log2(T) lane-roll rounds entirely in
-VMEM, rows gridded): the same fill in ~2 ms.  forward_fill_multi picks
-the kernel automatically on the TPU backend at sizes where it pays;
-the associative-scan path remains the portable fallback (CPU tests,
-tiny blocks, exotic shapes).
+This form is exact (selects only).  On an H100 it beats the log-depth
+associative scan of selects it replaced: 1.33 vs 2.76 ms for FM's pair of
+fills (one complex, one real) at (8192, 7104), 0.28 vs 0.65 ms at
+(4096, 960) — PERF.md, "Bring-up measurements".
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 __all__ = ["forward_fill", "forward_fill_multi", "last_true_index"]
-
-#: Use the pallas kernel on TPU when the fill has at least this many
-#: elements (below it the scan is already near the dispatch floor).
-_PALLAS_MIN_ELEMS = 1 << 20
-_PALLAS_MAX_LANES = 1 << 15
 
 
 def last_true_index(mask: jax.Array) -> jax.Array:
@@ -43,142 +31,21 @@ def last_true_index(mask: jax.Array) -> jax.Array:
     return jax.lax.cummax(masked, axis=mask.ndim - 1)
 
 
-def _fill_scan(values: tuple, mask: jax.Array, inits: tuple) -> tuple:
-    """Portable log-depth associative-scan fill (the original path)."""
-
-    def combine(a, b):
-        bm = b[-1]
-        return tuple(
-            jnp.where(bm, bv, av) for av, bv in zip(a[:-1], b[:-1])
-        ) + (a[-1] | bm,)
-
-    scanned = jax.lax.associative_scan(
-        combine, tuple(values) + (mask,), axis=values[0].ndim - 1
-    )
-    filled, m = scanned[:-1], scanned[-1]
-    outs = []
-    for f, v, init in zip(filled, values, inits):
-        init_b = jnp.broadcast_to(
-            jnp.asarray(init, v.dtype)[..., None], v.shape
-        )
-        outs.append(jnp.where(m, f, init_b))
-    return tuple(outs)
-
-
-def _fill_pallas(planes: tuple, mask: jax.Array, inits: tuple,
-                 interpret: bool = False) -> tuple:
-    """Single-HBM-pass fill of f32 (B, T) planes sharing one (B, T) bool
-    mask: log2(T) pltpu.roll rounds in VMEM, gridded over row blocks.
-    Exact (selects only); output identical to _fill_scan."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, T = mask.shape
-    n_vals = len(planes)
-    # Lanes are explicitly padded to a 128 multiple: a ragged (non-128)
-    # minor block is legal but Mosaic's masked rolls run 6x slower than
-    # the pad copies cost (9.3 vs 1.5 ms at (7168,7104), measured r4).
-    Tp = -(-T // 128) * 128
-    BB = 64
-    Bp = -(-B // BB) * BB
-    rounds = max(1, int(np.ceil(np.log2(max(Tp, 2)))))
-
-    def kernel(*refs):
-        v_refs = refs[:n_vals]
-        m_ref = refs[n_vals]
-        i_refs = refs[n_vals + 1:2 * n_vals + 1]
-        o_refs = refs[2 * n_vals + 1:]
-        vs = [r[:] for r in v_refs]
-        m = m_ref[:]
-        lane = jax.lax.broadcasted_iota(jnp.int32, m.shape, 1)
-        d = 1
-        for _ in range(rounds):
-            if interpret:
-                vr = [jnp.roll(v, d, axis=1) for v in vs]
-                mr = jnp.roll(m, d, axis=1)
-            else:
-                vr = [pltpu.roll(v, d, axis=1) for v in vs]
-                mr = pltpu.roll(m, d, axis=1)
-            ok = lane >= d                       # shifted-in lanes invalid
-            mr = jnp.where(ok, mr, jnp.zeros_like(mr))
-            keep = m > 0
-            vs = [jnp.where(keep, v, x) for v, x in zip(vs, vr)]
-            m = jnp.maximum(m, mr)
-            d *= 2
-            if d >= Tp:
-                break
-        keep = m > 0
-        for o_ref, v, i_ref in zip(o_refs, vs, i_refs):
-            o_ref[:] = jnp.where(keep, v, i_ref[:])
-
-    spec = pl.BlockSpec((BB, Tp), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    ispec = pl.BlockSpec((BB, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    padded = [jnp.pad(v, ((0, Bp - B), (0, Tp - T))) for v in planes]
-    mp = jnp.pad(mask.astype(jnp.float32), ((0, Bp - B), (0, Tp - T)))
-    ip = [jnp.pad(jnp.broadcast_to(jnp.asarray(i, jnp.float32), (B,)),
-                  ((0, Bp - B),))[:, None] for i in inits]
-    outs = pl.pallas_call(
-        kernel,
-        out_shape=tuple(jax.ShapeDtypeStruct((Bp, Tp), jnp.float32)
-                        for _ in range(n_vals)),
-        grid=(Bp // BB,),
-        in_specs=[spec] * n_vals + [spec] + [ispec] * n_vals,
-        out_specs=tuple(spec for _ in range(n_vals)),
-        interpret=interpret,
-        compiler_params=None if interpret else
-            pltpu.CompilerParams(vmem_limit_bytes=96 * 1024 * 1024),
-    )(*padded, mp, *ip)
-    return tuple(o[:B, :T] for o in outs)
-
-
 def forward_fill_multi(values: tuple, mask: jax.Array, inits: tuple) -> tuple:
     """Forward-fill SEVERAL value arrays gated by one shared mask:
     out_i[n] = values_i[k] for the last k <= n with mask[k], else inits_i.
 
-    Picks the single-pass pallas kernel on TPU at bank scale (see module
-    docstring); everywhere else the associative scan."""
-    use_pallas = (
-        jax.default_backend() == "tpu"
-        and mask.ndim >= 2
-        and mask.size >= _PALLAS_MIN_ELEMS
-        # VMEM per grid block scales with the lane (time) axis: ~5 f32
-        # planes x 64 rows x Tp lanes, double-buffered.  Past ~32k lanes
-        # that exceeds Mosaic's vmem limit and pallas_call fails to
-        # COMPILE — route long-block/few-channel shapes to the scan.
-        and mask.shape[-1] <= _PALLAS_MAX_LANES
-        and all(v.dtype in (jnp.float32, jnp.complex64) for v in values)
-    )
-    if not use_pallas:
-        return _fill_scan(values, mask, inits)
-
-    lead = mask.shape[:-1]
-    T = mask.shape[-1]
-    B = int(np.prod(lead))
-    m2 = mask.reshape(B, T)
-    # split complex values into f32 planes sharing the one kernel call
-    planes, plan = [], []
-    inits_f = []
+    `values`/`mask` have shape (..., n); each init broadcasts to (...,).
+    The index scan is computed once and shared by every value array."""
+    idx = last_true_index(mask)
+    seen = idx >= 0
+    at = jnp.maximum(idx, 0)
+    outs = []
     for v, init in zip(values, inits):
-        v2 = v.reshape(B, T)
-        init_b = jnp.broadcast_to(jnp.asarray(init, v.dtype), lead).reshape(B)
-        if v.dtype == jnp.complex64:
-            plan.append(("c", len(planes)))
-            planes += [jnp.real(v2), jnp.imag(v2)]
-            inits_f += [jnp.real(init_b), jnp.imag(init_b)]
-        else:
-            plan.append(("r", len(planes)))
-            planes.append(v2)
-            inits_f.append(init_b)
-    outs = _fill_pallas(tuple(planes), m2, tuple(inits_f))
-    result = []
-    for kind, at in plan:
-        if kind == "c":
-            result.append(jax.lax.complex(outs[at], outs[at + 1])
-                          .reshape(lead + (T,)))
-        else:
-            result.append(outs[at].reshape(lead + (T,)))
-    return tuple(result)
+        got = jnp.take_along_axis(v, at, axis=-1)
+        init_b = jnp.asarray(init, v.dtype)[..., None]
+        outs.append(jnp.where(seen, got, init_b))
+    return tuple(outs)
 
 
 def forward_fill(values: jax.Array, mask: jax.Array, init: jax.Array) -> jax.Array:

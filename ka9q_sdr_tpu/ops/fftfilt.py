@@ -1,4 +1,4 @@
-"""Overlap-save fast-convolution filter engine, TPU-native.
+"""Overlap-save fast-convolution filter engine.
 
 This is the heart of the rebuild: the reference's master/slave filter
 (filter.c:54-252).  One *master* holds the forward FFT of each input block;
@@ -22,7 +22,6 @@ scaling) match filter.c exactly; see slave_execute for the mapping.
 from __future__ import annotations
 
 import enum
-import os
 from typing import NamedTuple
 
 import jax
@@ -36,7 +35,6 @@ __all__ = [
     "master_init",
     "master_execute",
     "fft_fourstep",
-    "fft_mxu",
     "slave_execute",
     "slave_bin_indices",
     "noise_gain",
@@ -110,95 +108,13 @@ def master_init(spec: MasterSpec, dtype=jnp.float32) -> jax.Array:
     return jnp.zeros((spec.M - 1,), dtype=cdtype)
 
 
-#: Use a decomposed 1D complex FFT at or above this size.  Re-measured
-#: (r3, slope method, best-of-2): XLA's monolithic FFT now matches or
-#: beats the decomposition up to N = 2^24 (5.47 vs 6.24 ms) — the
-#: runtime improved since the round-1 measurement — but loses 1.7x at
-#: 2^25 (25.0 vs 14.5 ms) and 1.3x at 2^26 (37.4 vs 28.9 ms).
-#: P = 2^(log2 N / 2) (i.e. Q ~ 8192) measured optimal at both sizes
-#: for the four-step.  The output transpose costs ~11% of the
-#: decomposition; skipping it (comb layout) is NOT a win end-to-end
-#: because the channelizer's per-channel windows then become strided
-#: column reads that move the same HBM bytes the transpose does.
-#:
-#: On TPU the default big-FFT path is now fft_mxu (3-level MXU matmul
-#: decomposition, r4): 18.2 vs 23.6 ms at 2^26, 9.8 vs 12.2 ms at 2^25
-#: (1.25-1.30x over the four-step).
-FOURSTEP_MIN = 1 << 25
-
-#: Per-N radix triples for fft_mxu, measured optimal on v5e (r4 sweep:
-#: equal-ish factors minimise MXU MACs; minor factor >= 128 keeps every
-#: intermediate lane-aligned).
-_MXU_RADICES = {1 << 25: (256, 512, 256), 1 << 26: (256, 512, 512)}
-
-
-def _mxu_radices(N: int) -> tuple[int, int, int] | None:
-    """Three power-of-two factors of N, each 128..512, closest to the
-    cube root (minimises total MXU MACs while staying lane-aligned)."""
-    if N in _MXU_RADICES:
-        return _MXU_RADICES[N]
-    logN = N.bit_length() - 1
-    if (1 << logN) != N:
-        return None
-    for l1 in (8, 9):                      # 256 first (measured best), 512
-        for l2 in (9, 8):
-            l3 = logN - l1 - l2
-            if 7 <= l3 <= 9:
-                return (1 << l1, 1 << l2, 1 << l3)
-    return None
-
-
-def fft_mxu(z: jax.Array, precision=jax.lax.Precision.HIGH,
-            radices: tuple[int, int, int] | None = None) -> jax.Array:
-    """Natural-order forward FFT as three MXU matmuls (r4).
-
-    N = R1*R2*R3 (each 128..512): contract each digit axis with a small
-    DFT matrix, applying the Cooley-Tukey twiddle between levels with an
-    exact integer phase mod (same spur argument as fft_fourstep).  The
-    contractions are MXU-shaped (K = 128..512), so the FFT rides the
-    systolic array instead of XLA's FFT kernels: measured 1.30x at 2^26
-    and 1.24x at 2^25 over fft_fourstep on v5e.
-
-    precision: HIGH (default) runs the matmuls as 3-pass bf16 with f32
-    accumulation — max spectrum error 2.5e-5 (-92 dB), below the noise
-    floor of every supported front end (funcube 16-bit: -96 dBFS;
-    hackrf: 8-bit).  HIGHEST is exact f32 (1.6e-7) but loses the 2^26
-    win.  KA9Q_EXACT_FFT=1 routes master_execute to fft_fourstep
-    instead (exact f32 everywhere).  Tests run on CPU where einsum is
-    exact f32 regardless.  Documented in PARITY.md (divergences).
-    """
-    N = z.shape[-1]
-    if radices is None:
-        radices = _mxu_radices(N)
-    if radices is None or z.ndim != 1:
-        return fft_fourstep(z)
-    if int(np.prod(radices)) != N:
-        raise ValueError(f"radices {radices} do not factor N={N}")
-    R1, R2, R3 = radices
-
-    def dftmat(R):
-        k = np.arange(R)
-        return jnp.asarray(
-            np.exp(-2j * np.pi * np.outer(k, k) / R).astype(np.complex64))
-
-    X = z.reshape(R1, R2, R3)
-    Y1 = jnp.einsum("au,abc->ubc", dftmat(R1), X, precision=precision)
-    u = jnp.arange(R1, dtype=jnp.int32)[:, None, None]
-    b = jnp.arange(R2, dtype=jnp.int32)[None, :, None]
-    c = jnp.arange(R3, dtype=jnp.int32)[None, None, :]
-    frac = (u * (b * R3 + c)) % N          # u*r < N <= 2^26 — fits int32
-    ang = jnp.float32(-2.0 * np.pi / N) * frac.astype(jnp.float32)
-    Y1 = Y1 * jax.lax.complex(jnp.cos(ang), jnp.sin(ang))
-    Y2 = jnp.einsum("ubc,bv->uvc", Y1, dftmat(R2), precision=precision)
-    M1 = R2 * R3
-    v = jnp.arange(R2, dtype=jnp.int32)[:, None]
-    c2 = jnp.arange(R3, dtype=jnp.int32)[None, :]
-    frac2 = (v * c2) % M1
-    ang2 = jnp.float32(-2.0 * np.pi / M1) * frac2.astype(jnp.float32)
-    Y2 = Y2 * jax.lax.complex(jnp.cos(ang2), jnp.sin(ang2))[None]
-    Y3 = jnp.einsum("uvc,cw->uvw", Y2, dftmat(R3), precision=precision)
-    # Y3[u,v,w] = X^[u + R1 v + R1 R2 w]: transpose-reverse is natural order
-    return jnp.transpose(Y3, (2, 1, 0)).reshape(N)
+#: Use the four-step decomposition (fft_fourstep) for complex masters at
+#: or above this size.  On an H100 (700 W) cuFFT's monolithic transform
+#: beat the four-step at every master size the bank uses: 0.57 vs 0.87 ms
+#: at 2^24, 0.95 vs 1.20 ms at 2^25, 1.71 vs 2.12 ms at 2^26 (PERF.md,
+#: "Bring-up measurements").  So the threshold sits above the largest
+#: master; fft_fourstep stays for the distributed FFT (parallel.dfft).
+FOURSTEP_MIN = 1 << 27
 
 
 def fft_fourstep(z: jax.Array) -> jax.Array:
@@ -232,8 +148,8 @@ def master_execute(
 
     Concatenates the carried M-1 overlap with the new L-sample block,
     forward-FFTs the N samples, and returns (new_overlap, fdomain).
-    The FFT is unnormalised-forward, matching FFTW_FORWARD.  Large
-    complex masters use the four-step decomposition (see fft_fourstep).
+    The FFT is unnormalised-forward, matching FFTW_FORWARD.  Complex
+    masters at or above FOURSTEP_MIN use the four-step decomposition.
     """
     if block.shape[-1] != spec.L:
         raise ValueError(f"block length {block.shape[-1]} != L = {spec.L}")
@@ -241,14 +157,7 @@ def master_execute(
     if spec.in_type is FilterType.REAL:
         fdomain = jnp.fft.rfft(buf, axis=-1)
     elif spec.N >= FOURSTEP_MIN:
-        if (jax.default_backend() == "tpu" and buf.ndim == 1
-                # "0"/"false" must disable, not enable (truthy-string trap)
-                and os.environ.get("KA9Q_EXACT_FFT", "0").lower()
-                in ("", "0", "false", "no")
-                and _mxu_radices(spec.N) is not None):
-            fdomain = fft_mxu(buf)
-        else:
-            fdomain = fft_fourstep(buf)
+        fdomain = fft_fourstep(buf)
     else:
         fdomain = jnp.fft.fft(buf, axis=-1)
     new_overlap = buf[..., spec.L:]

@@ -3,9 +3,9 @@
 The reference's per-sample IIRs — the AM carrier DC filter (am.c:62),
 smoothed noise/power estimators, and the experimental complex notch
 (filter.c:551-571) — are all one-pole linear recurrences
-``y_n = (1-a) y_{n-1} + a x_n``.  On TPU a sequential per-sample loop wastes
-the VPU; a linear recurrence is exactly `lax.associative_scan`, which runs
-in O(log n) depth and vectorises across channels.
+``y_n = (1-a) y_{n-1} + a x_n``.  A sequential per-sample loop serialises
+the device; a linear recurrence is exactly `lax.associative_scan`, which
+runs in O(log n) depth and vectorises across channels.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Phase-continuous complex NCO as vectorised phase ramps.
 
-TPU-native re-design of the reference oscillator (osc.c):
+Re-design of the reference oscillator (osc.c) for block-parallel devices:
 
 The reference steps a complex-double phasor once per sample under a mutex
-(osc.c:39-51), renormalising every 16384 steps.  On TPU we need (a) a whole
+(osc.c:39-51), renormalising every 16384 steps.  Here we need (a) a whole
 block of oscillator samples at once, (b) exact phase continuity across
 blocks and retunes (osc.c:24-27 keeps phase on retune), and (c) no float64
-in the hot path (TPU has no native f64).
+in the hot path (float64 is slow or absent on accelerators).
 
 Design: the phase accumulator is a **fixed-point uint32** in units of
 2^-32 cycles.  Integer multiply-add wraps mod 2^32, which is exactly

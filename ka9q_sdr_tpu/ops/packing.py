@@ -1,11 +1,10 @@
 """Real<->complex packing for jit boundaries.
 
-Some TPU runtimes (including the one this framework targets) cannot
-transfer complex64 buffers between host and device, and cannot fetch any
-output of an executable that returns complex64.  The rule throughout this
-framework is therefore: **every jit boundary is real-dtype only**.  Complex
-arithmetic lives inside jit; state and I/O cross the boundary as float32
-real/imag pairs packed on a trailing axis.
+The convention throughout this framework: **every jit boundary is
+real-dtype only**.  Complex arithmetic lives inside jit; state and I/O
+cross the boundary as float32 real/imag pairs packed on a trailing axis.
+CUDA transfers complex64 directly, so the convention is no longer
+required; removing it is a design item of its own (ROADMAP.md).
 
 These helpers are shape-stable and fuse away inside jit (they lower to a
 stack/slice, which XLA folds into the surrounding computation).

@@ -1,11 +1,12 @@
-"""Multi-chip sharding for the channel bank.
+"""Multi-device sharding for the channel bank.
 
 The reference scales by adding consumer *processes* on the multicast LAN
-(SURVEY.md §2.7).  On TPU the scaling axis is the channel dimension of the
+(SURVEY.md §2.7).  Here the scaling axis is the channel dimension of the
 bank sharded over a `jax.sharding.Mesh`: every device holds the replicated
 wideband block, computes the (replicated) forward FFT, and gathers/IFFTs/
 demodulates only its shard of channels — no collectives in the steady
-state, so ICI stays idle and scaling is embarrassingly linear.
+state, so the interconnect stays idle and scaling is embarrassingly
+linear.
 """
 
 from .mesh import (

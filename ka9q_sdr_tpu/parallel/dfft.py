@@ -1,10 +1,10 @@
 """Distributed wideband FFT — the sequence-scaling path (SURVEY.md §5).
 
-At the current flagship rate (24.576 Msps, N=2^20) one chip computes the
-master FFT in-place and the channel axis shards with zero communication
-(parallel.mesh).  Beyond ~100 Msps the wideband FFT itself outgrows one
-chip; this module splits it across the mesh with the classic two-step
-decomposition, using XLA collectives over ICI:
+One device can compute the master FFT in place while the channel axis
+shards with zero communication (parallel.mesh).  When the wideband FFT
+itself outgrows one device, this module splits it across the mesh with
+the classic two-step decomposition, using XLA collectives (NCCL over
+NVLink on a multi-card host):
 
 With N = P*Q over P devices and the block *time-sharded* (device p holds
 x[p*Q:(p+1)*Q]):
@@ -12,7 +12,7 @@ x[p*Q:(p+1)*Q]):
 1. small cross-device DFT: y_j[q] = sum_p x_p[q] * W_P^(j*p).
    Each device forms its P partial products locally and one
    `reduce_scatter` over the mesh delivers y_j to device j — the only
-   communication, N complex values through ICI.
+   communication, N complex values over the interconnect.
 2. twiddle + local FFT: X[j + P*m] = FFT_q( W_N^(j*q) * y_j[q] )[m].
 
 Device j ends owning the frequency comb {j, j+P, j+2P, ...} — the
@@ -20,8 +20,8 @@ Device j ends owning the frequency comb {j, j+P, j+2P, ...} — the
 verification; a production >100 Msps bank would gather each channel's
 N_dec bins directly from the comb (B*N_dec values, far less than N).
 
-Tested against numpy on the 8-virtual-device CPU mesh; on real hardware
-the reduce_scatter rides ICI.
+Tested against numpy on the 8-virtual-device CPU mesh; on a multi-card
+host the reduce_scatter rides NVLink.
 """
 
 from __future__ import annotations
@@ -73,11 +73,8 @@ def make_dfft_sm(mesh: Mesh, N: int, axis: str = "ch"):
         tw = jnp.exp(
             (-2j * jnp.pi / N) * (jj.astype(jnp.float32) * q.astype(jnp.float32))
         ).astype(jnp.complex64)
-        # use the four-step decomposition above the same measured
-        # threshold as the replicated master (FOURSTEP_MIN = 2^25, where
-        # the decomposition wins 1.7x; below it the monolithic FFT
-        # matches or wins — re-measured r3).  Only reachable for very
-        # large per-device slices (e.g. N = 2^26 on 2 devices).
+        # same threshold as the replicated master (FOURSTEP_MIN); only
+        # reachable for very large per-device slices
         if Q >= FOURSTEP_MIN:
             return fft_fourstep(y * tw)
         return jnp.fft.fft(y * tw)

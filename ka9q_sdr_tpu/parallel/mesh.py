@@ -13,7 +13,8 @@ with zero communication.  When the wideband FFT itself dominates (north
 star >100 Msps), make_sharded_bank_step's `shard_fft=True` distributes the
 master FFT too (_bank_step_packed_dfft): the two-step decomposition in
 parallel.dfft computes a comb-distributed spectrum with one reduce_scatter
-over ICI and each device gathers its channels' bins straight from the comb.
+over the interconnect (NVLink) and each device gathers its channels'
+bins straight from the comb.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ def make_sharded_bank_step(
     across the mesh (the >100 Msps sequence-scaling path, SURVEY §5): the
     N-point time block is split over devices, the two-step decomposition in
     parallel.dfft computes a comb-distributed spectrum with one
-    reduce_scatter over ICI, and each device gathers its channels' N_dec
-    bins straight from the comb (bin_perm = comb_index) — XLA inserts the
+    reduce_scatter over the interconnect, and each device gathers its
+    channels' N_dec bins straight from the comb (bin_perm = comb_index) — XLA inserts the
     gather collective.  Numerically identical to the replicated-FFT path.
 
     `template` is the unpacked BankState structure (complex dtypes marked),
@@ -182,12 +183,9 @@ def _bank_step_packed_dfft(
             f"N={cfg.N} not divisible by the {n_dev}-device mesh"
         )
     dfft_fn = make_dfft_sm(mesh, cfg.N, CHANNEL_AXIS)
-    # comb_p engages bank_channelize's ALIGNED comb gather (r4: the
-    # generic per-element path measured 123.5 vs 1.56 ms aligned at
-    # N=2^20/2048 ch on chip — a 79x cliff that made >100 Msps claims
-    # unbudgeted).  r5: the aligned path serves CROSS_CONJ ISB too;
-    # the only remaining fallbacks are geometric, and they are a
-    # deployment-breaking perf cliff — warn LOUDLY at construction.
+    # comb_p engages bank_channelize's ALIGNED comb gather (it serves
+    # CROSS_CONJ ISB too); the only fallbacks are geometric, to the
+    # generic per-element gather — warn LOUDLY at construction.
     _Q = cfg.N // n_dev
     if cfg.N_dec % n_dev or _Q % min(128, _Q):
         import warnings
@@ -196,9 +194,8 @@ def _bank_step_packed_dfft(
             f"shard_fft geometry N={cfg.N}, N_dec={cfg.N_dec} over "
             f"{n_dev} devices cannot use the aligned comb gather "
             f"(needs N_dec % n_dev == 0 and (N/n_dev) % 128 == 0): "
-            f"the bank will run the per-element gather, measured "
-            f"~30-80x slower per block.  Pad the geometry or drop "
-            f"shard_fft.",
+            f"the bank will run the generic per-element gather.  Pad the "
+            f"geometry or drop shard_fft.",
             RuntimeWarning,
             stacklevel=2,
         )

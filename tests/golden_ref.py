@@ -4,7 +4,7 @@ float32 numpy.
 This reproduces the reference's sample-by-sample control flow (radio.c
 proc_samples, am.c/fm.c/linear.c demod loops) literally — sequential
 recurrences, per-sample AGC, per-sample discriminator state — as a parity
-oracle for the vectorised TPU pipeline (each step annotated with its
+oracle for the vectorised JAX pipeline (each step annotated with its
 file:line source).
 
 Since r5 this is a FAST PROXY, not the ground truth: the compiled

@@ -155,9 +155,9 @@ class TestParseFrequency:
     def test_negative_entries_keep_the_magnitude_heuristic(self):
         """Bank channels are baseband offsets: negative entries are legal
         and must parse like their positive twins with the sign kept (a
-        signed comparison would turn -200000 Hz into -2e11 Hz — found by
-        a real-TPU drive where the channel-file USB channel at -200 kHz
-        silently aliased to a garbled in-band bin)."""
+        signed comparison would turn -200000 Hz into -2e11 Hz — a
+        channel-file USB channel at -200 kHz would silently alias to a
+        garbled in-band bin)."""
         from ka9q_sdr_tpu.utils.misc import parse_frequency
 
         assert parse_frequency("-200000") == -200000.0

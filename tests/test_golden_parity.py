@@ -4,7 +4,7 @@ acceptance metric: PCM RMS error vs the reference in dBFS, target
 
 The golden executor (golden_ref.py) runs the reference's literal
 per-sample float32 loops; the production pipeline runs the vectorised
-TPU program.  Divergence sources are only float arithmetic ordering and
+JAX program.  Divergence sources are only float arithmetic ordering and
 FFT implementations, so errors should sit near the float32 noise floor.
 """
 

@@ -251,9 +251,9 @@ def test_active_compaction_never_reports_padding_rows():
 def test_comb_fast_gather_matches_natural_all_p():
     """bank_channelize's aligned comb path (comb_p) must match the
     natural-layout path bit-closely for every mesh width, including
-    P where CC*P > N_dec (multi-wrap fold) — the r4 fast path that
-    replaced the ~79x-slower per-element comb gather (measured on chip:
-    123.5 vs 1.56 ms/block at N=2^20 / 2048 ch)."""
+    P where CC*P > N_dec (multi-wrap fold) — the aligned path that
+    serves the distributed-FFT layout in place of the per-element comb
+    gather."""
     import jax.numpy as jnp
 
     from ka9q_sdr_tpu.models.bank import (bank_channelize, bank_init,

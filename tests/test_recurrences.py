@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from ka9q_sdr_tpu.ops import agc as A
 from ka9q_sdr_tpu.ops import iir as I
@@ -255,38 +256,38 @@ class TestNCOSweep:
         assert np.all(np.abs(np.diff(d)) < 1e-4)
 
 
-class TestPallasFill:
-    """ops/ffill._fill_pallas (the TPU single-pass fill, r4: 23 -> ~2 ms
-    at (7168,7104)) must agree exactly with the associative-scan path.
-    CI runs it in interpret mode; padding edges (B not a multiple of the
-    64-row grid block, T not a multiple of 128 lanes) are exercised."""
+class TestForwardFillMatchesLoop:
+    """ops/ffill (cummax of the gated index + gather) against the C loop's
+    recurrence, walked sample by sample in numpy: exactly equal, since the
+    fill only selects."""
 
-    def test_matches_scan(self):
-        import jax.numpy as jnp
-        from ka9q_sdr_tpu.ops.ffill import _fill_pallas, _fill_scan
+    @pytest.mark.parametrize("case", ["ragged_T", "all_weak_rows",
+                                      "complex_and_real", "batch_dims"])
+    def test_equals_numpy_loop(self, case):
+        import jax
+        from chip_smoke import fill_reference
+        from ka9q_sdr_tpu.ops.ffill import forward_fill_multi
 
         rng = np.random.default_rng(3)
-        for B, T in ((64, 256), (7, 100), (130, 391)):
-            v1 = rng.standard_normal((B, T)).astype(np.float32)
-            v2 = rng.standard_normal((B, T)).astype(np.float32)
-            m = rng.random((B, T)) < 0.6
-            i1 = rng.standard_normal(B).astype(np.float32)
-            i2 = rng.standard_normal(B).astype(np.float32)
-            args = ((jnp.asarray(v1), jnp.asarray(v2)), jnp.asarray(m),
-                    (jnp.asarray(i1), jnp.asarray(i2)))
-            got = _fill_pallas(*args, interpret=True)
-            want = _fill_scan(*args)
-            for g, w in zip(got, want):
-                np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-
-    def test_all_weak_rows_take_init(self):
-        import jax.numpy as jnp
-        from ka9q_sdr_tpu.ops.ffill import _fill_pallas
-
-        B, T = 8, 200
-        v = jnp.zeros((B, T), jnp.float32)
-        m = jnp.zeros((B, T), bool)
-        init = jnp.arange(B, dtype=jnp.float32)
-        (out,) = _fill_pallas((v,), m, (init,), interpret=True)
-        np.testing.assert_array_equal(
-            np.asarray(out), np.broadcast_to(np.arange(B, dtype=np.float32)[:, None], (B, T)))
+        shape = {"ragged_T": (7, 391), "all_weak_rows": (9, 200),
+                 "complex_and_real": (130, 97), "batch_dims": (3, 5, 64)
+                 }[case]
+        lead = shape[:-1]
+        vr = rng.standard_normal(shape).astype(np.float32)
+        vc = (rng.standard_normal(shape)
+              + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        m = rng.random(shape) < 0.4
+        if case == "all_weak_rows":
+            m[::2] = False
+        m[..., 0] = False              # every row starts on its init
+        ir = rng.standard_normal(lead).astype(np.float32)
+        ic = (rng.standard_normal(lead)
+              + 1j * rng.standard_normal(lead)).astype(np.complex64)
+        if case == "complex_and_real":
+            vals, inits = (vc, vr), (ic, ir)
+        else:
+            vals, inits = (vr,), (ir,)
+        got = jax.jit(forward_fill_multi)(vals, m, inits)
+        for g, v, i in zip(got, vals, inits):
+            np.testing.assert_array_equal(np.asarray(g),
+                                          fill_reference(v, m, i))

@@ -1,11 +1,10 @@
 """Smoke tests for the measurement tools (tools/).
 
-These are the scripts behind ARCHITECTURE §6b/§9's r5 numbers — the
-per-stage budget (`stage_profile.py`, the 7168-vs-8192 ablation) and the
-sustained serving soak (`serve_soak.py`, the 5120-ch headline).  Each has
-a --cpu tiny-geometry mode designed for exactly this hermetic check: the
-tools must keep emitting a parseable one-line JSON contract, or the next
-round's measurements silently break.
+The per-stage budget (`stage_profile.py`, cumulative-prefix ablation)
+and the sustained serving soak (`serve_soak.py`) each have a --cpu
+tiny-geometry mode designed for exactly this hermetic check: the tools
+must keep emitting a parseable one-line JSON contract, or the next
+measurements silently break.
 
 Run as subprocesses (the tools configure their own CPU backend before
 first device use; the parent conftest's settings don't propagate).
@@ -35,12 +34,9 @@ def _run_tool(args, timeout=280):
 
 def test_stage_profile_cpu_smoke():
     res = _run_tool(["tools/stage_profile.py", "--cpu", "--iters", "3"])
-    # Structural contract only: slope timings on a loaded shared host can
-    # come out arbitrarily noisy (even negative — t_hi < t_lo when the
-    # short run eats a load spike), so asserting stage ordering here is a
-    # flake.  The numeric sanity of the method is established on the real
-    # chip (ARCHITECTURE §6b); what must not rot is the JSON schema the
-    # next round's measurements parse.
+    # Structural contract only: timings on a loaded shared host are noisy,
+    # so asserting stage ordering here is a flake; what must not rot is
+    # the JSON schema the measurements parse.
     for key in ("master_ms", "chan_ms", "full_ms", "fills_ms",
                 "pl_ring_ms", "pl_fft_amortised_ms",
                 "d_channelize_ms", "d_demod_ms", "realtime_x"):
